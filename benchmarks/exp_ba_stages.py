@@ -1,10 +1,7 @@
 """Stage-level device-time decomposition of the sparse-obs BA iteration.
 
-VERDICT r3 weak #1 / task #2: the 1000-cam flagship's ~0.5 s/iteration
-was attributed to the camera-pair scatter in ``reduce_pass`` by a
-docstring estimate; this probe MEASURES each pipeline stage with the
-repo's honest-timing protocol so the optimization target is a number,
-not a narrative:
+Measures each pipeline stage of the 1000-camera corridor BA separately,
+so an optimization target is a number, not a narrative:
 
   * ``accumulate``  — chunked linearize sweeps + Ba/g_a segment_sums
   * ``reduce``      — pass A: C⁻¹, EC, camera-pair blocks + the flat
@@ -12,13 +9,14 @@ not a narrative:
   * ``assemble``    — reduced 6000² Cholesky (+ schur_refine rounds)
   * ``backsub``     — pass C landmark back-substitution
 
-Protocol (CLAUDE.md): every stage runs K reps inside ONE dispatched
+Protocol: every stage runs K reps inside ONE dispatched
 ``lax.fori_loop``; per-rep inputs are perturbed from the loop carry so
-no rep can be served from a cache or elided by DCE; a scalar derived
-from every output is carried and force-read at the end.  Marginal time
-= (wall(K) − wall(1)) / (K − 1) cancels dispatch + compile-cache noise.
+no rep can be elided by DCE; a scalar derived from every output is
+carried and read at the end.  Marginal time = (wall(K) − wall(1)) /
+(K − 1) cancels dispatch and compile noise.
 
 Usage: python benchmarks/exp_ba_stages.py [n_cams n_pts k_obs reps]
+(f32; set BA_DTYPE=float64 for f64)
 """
 
 import os
@@ -42,7 +40,7 @@ def main(n_cams=1000, n_pts=50_000, k_obs=8, reps=9, chunk=1024):
     from tinyopt_tpu.ops.schur_obs import (_pick_chunk, assemble_reduced,
                                            make_obs_kernels)
 
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = jnp.dtype(os.environ.get("BA_DTYPE", "float32"))
     (obs, cam_idx, mask), x0, _ = make_ba_problem_sparse(
         n_cams=n_cams, n_pts=n_pts, k_obs=k_obs, noise=1e-3, seed=7,
         dtype=dtype)
@@ -251,7 +249,7 @@ def main(n_cams=1000, n_pts=50_000, k_obs=8, reps=9, chunk=1024):
     blk_diag_c0 = jnp.full((CH * K, da * da), 0.5, dtype)
     rhs_c0 = jnp.full((CH * K, da), 0.5, dtype)
 
-    # ---- windowed MXU reduce (r5): measured on the SORTED layout the
+    # ---- windowed matmul reduce: measured on the SORTED layout the
     # schur_sort="auto" path solves in (landmark order is arbitrary;
     # the sort is a one-time static permutation at build).
     from tinyopt_tpu.ops.schur_obs import (camera_sort_perm,
@@ -279,8 +277,8 @@ def main(n_cams=1000, n_pts=50_000, k_obs=8, reps=9, chunk=1024):
                     + jnp.sum(Cinv[0])).astype(dtype)
 
     # band-storage direct path: reduce straight into band entries +
-    # CR solve from the band (the r5 TPU default when banded + window
-    # both plan — replaces reduce+assemble in one stage)
+    # CR solve from the band (taken when banded + window both plan —
+    # replaces reduce+assemble in one stage)
     from tinyopt_tpu.ops.schur_obs import (_damp_blocks,
                                            banded_reduced_solve_band,
                                            make_reduce_pass_window_banded,
@@ -373,43 +371,6 @@ def main(n_cams=1000, n_pts=50_000, k_obs=8, reps=9, chunk=1024):
         print(f"{name:28s} {t*1e3:9.2f} ms/iter  {100*t/total:5.1f}%")
     print(f"{'TOTAL':28s} {total*1e3:9.2f} ms/iter")
 
-    # ---- roofline accounting for the WHOLE iteration (VERDICT r3 #2):
-    # analytic flop/byte model -> what fraction of light-speed the
-    # measured iteration achieves, and which bound (flops vs HBM) binds.
-    m_res = 2                       # reprojection residual dims
-    n_obs = n_pts * k_obs
-    P_tri = K * (K - 1) // 2
-    fl_linearize = n_obs * (da + db) * 400.0   # jvp sweeps, ~400 flop/res
-    fl_blocks = n_obs * m_res * (da * da + da * db + db * db)
-    fl_reduce = (n_pts * P_tri * da * da * db * 2    # pair blocks
-                 + n_obs * da * db * db * 2)         # EC
-    n_s = n_cams * da
-    if banded_t is not None and band_g:
-        # banded CR: O(n_a·(g·da)²) factor work + banded refine matvecs
-        d_blk = band_g * da
-        fl_chol = (n_cams / band_g) * d_blk ** 3 * 4.0
-    else:
-        fl_chol = n_s ** 3 / 3.0 + 2.0 * 2 * n_s * n_s  # + refine mv
-    fl_backsub = n_obs * da * db * 2 * 2
-    fl_total = (fl_linearize + fl_blocks + fl_reduce + fl_chol
-                + fl_backsub)
-    # HBM bytes: row buffers written+read+gathered (~3x), S target, E/C
-    by_rows = n_pts * P_tri * da * da * 4 * 3.0
-    by_state = (n_obs * da * db + n_pts * db * db) * 4 * 4.0
-    by_S = n_cams * n_cams * da * da * 4 * 2.0
-    by_total = by_rows + by_state + by_S
-    PEAK_F32 = 30.5e12              # f32-HIGHEST 6-pass (exp_roofline)
-    PEAK_BW = 8.1e11                # v5e HBM ~810 GB/s
-    t_flops = fl_total / PEAK_F32
-    t_bw = by_total / PEAK_BW
-    print(f"\n# roofline model: {fl_total/1e9:.1f} GFLOP/iter "
-          f"(cholesky {fl_chol/1e9:.1f}), {by_total/1e9:.2f} GB/iter")
-    print(f"# light-speed bound: max(flops {t_flops*1e3:.2f} ms, "
-          f"HBM {t_bw*1e3:.2f} ms) = {max(t_flops, t_bw)*1e3:.2f} ms")
-    print(f"# measured iteration = {total*1e3:.1f} ms -> "
-          f"{100*max(t_flops, t_bw)/total:.1f}% of roofline "
-          f"(binding stage: see table; XLA dense Cholesky runs ~1-3% "
-          f"of MXU peak — exp_roofline.py)")
     return rows
 
 

@@ -2,8 +2,8 @@
 
 If the windowed/band-storage path converges measurably worse than the
 planned path in f32 on CPU too, the regression is numerical (summation
-order / refine semantics), not a TPU-backend artifact — and it can be
-bisected locally.  f64 rows give the trajectory floor.
+order / refine semantics), not an artifact of one device — and it can
+be bisected locally.  f64 rows give the trajectory floor.
 
 Window programs on CPU need the thunk-scheduler race flag (CLAUDE.md
 r5); set before jax import.

@@ -1,17 +1,15 @@
-"""Batched solving at TPU scale — run: python examples/batched_tpu_solving.py
+"""Batched solving — run: python examples/batched_solving.py
 
 Solves 10,000 independent 50-dimensional nonlinear least-squares problems
-in ONE program. On a TPU backend with ``hessian.solver="fused"`` the whole
-batch runs inside a single Pallas kernel (the entire LM loop — Jacobians,
-damped CG solves, accept/reject, per-instance λ schedules and stop reasons
-— stays in on-chip memory); everywhere else the identical semantics run as
-a vmapped XLA program. Pass ``--mesh`` to shard the batch over all local
-devices (data parallelism over instances; on CPU this uses 8 simulated
-devices).
+in ONE program: the whole LM loop is vmapped, every instance with its own
+λ schedule and stop reason, and with ``hessian.solver="cg"`` the damped
+solves of all instances run as one batched CG call (a Triton kernel on a
+GPU, ops/pallas_cg.py).  Pass ``--mesh`` to shard the batch over all
+local devices (data parallelism over instances; on CPU this uses 8
+simulated devices).
 
 The reference C++ library solves these one at a time at ~56 µs each
-(reference: benchmarks/dense.cpp:83-114); one TPU chip does ~0.15 µs
-per solve at this batch size.
+(reference: benchmarks/dense.cpp:83-114).
 """
 
 import argparse
@@ -22,8 +20,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-
-if __import__("os").environ.get("TINYOPT_CPU"):
+if os.environ.get("TINYOPT_CPU"):
     import jax
     jax.config.update("jax_platforms", "cpu")
 
@@ -59,7 +56,7 @@ def main():
                                 dtype=jnp.float32, seed=0)
     opts = to.Options(
         max_iters=10, save_history=False,
-        hessian=to.HessianOptions(solver="fused", cg_iters=8,
+        hessian=to.HessianOptions(solver="cg", cg_iters=8,
                                   save_last=False, carry_system=False))
 
     mesh = make_mesh(batch=len(jax.devices())) if args.mesh else None
@@ -74,8 +71,8 @@ def main():
     print(f"{conv}/{args.batch} converged, "
           f"mean iters {float(out.num_iters.mean()):.1f}, "
           f"max |x - y| {float(jnp.abs(x_opt - data.y).max()):.1e}")
-    print(f"first call (incl. compile): {dt:.2f}s; re-run a fresh batch "
-          "for steady-state timing (see bench.py for the honest protocol)")
+    print(f"first call (incl. compile): {dt:.2f}s; see bench.py for "
+          "steady-state timing")
 
 
 if __name__ == "__main__":

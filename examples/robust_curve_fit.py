@@ -1,6 +1,6 @@
 """Robust curve fitting with M-estimators: the reference's flagship loss
 use case (reference losses/robust_norms.h, README robust-norms feature),
-batched TPU-style.
+batched.
 
 Fits y = a·exp(b·t) to data with 25% gross outliers, three ways:
 
@@ -12,7 +12,7 @@ Fits y = a·exp(b·t) to data with 25% gross outliers, three ways:
 r ↦ √ρ(‖r‖²)·r̂ so the SAME LM solver minimizes Σρ(‖rᵢ‖²) — exactly how
 the reference composes `*Loss` norms with NLLS (robust_norms.h:60-63).
 
-Run: python examples/robust_curve_fit.py  (CPU or TPU)
+Run: python examples/robust_curve_fit.py  (CPU or GPU)
 """
 
 import sys
@@ -22,14 +22,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-import os
-
 if os.environ.get("TINYOPT_CPU"):
-    # CI smoke lane: run on CPU without touching a (possibly
-    # unreachable) accelerator plugin
+    # CI smoke lane: run on the CPU even where an accelerator exists
     jax.config.update("jax_platforms", "cpu")
-if not any(d.platform == "tpu" for d in jax.devices()):
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,7 +80,7 @@ def main():
     # start it from the (convex-ish) Huber solution — from a cold start
     # its early LM steps can push b into exp() overflow (inf residual →
     # NaN cost → SYSTEM_HAS_NAN_OR_INF stop, the reference's
-    # optimizer.h:404-409 semantics), especially in f32 on TPU.
+    # optimizer.h:404-409 semantics), especially in f32.
     x_gm, out = to.optimize(x_h, gm_res, opts)
     report("geman-mcclure", x_gm, out)
 

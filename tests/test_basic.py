@@ -321,7 +321,8 @@ class TestVmapConsistency:
 
 
 class TestFloat32:
-    """f32 is the TPU-native dtype (SURVEY.md §7 precision hard part);
+    """f32 is the accelerator's working dtype (SURVEY.md §7 precision
+    hard part);
     solves must converge to f32-appropriate tolerances."""
 
     def test_sqrt2_f32(self):

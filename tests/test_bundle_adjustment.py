@@ -85,9 +85,8 @@ class TestLargeScaleMatfree:
         """16 cams × 300 landmarks (996 tangent dims) through the
         matrix-free GN-CG path — the regime the reference admits being
         slow in (README.md:30); neither J (9600×996) nor H (996²) is
-        ever materialized.  On TPU the same code converges 100 cams ×
-        5000 landmarks (15,600 dims) to noise level in ~7 s
-        (benchmark record in PARITY.md)."""
+        ever materialized (run_benchmarks.bench_ba runs the same code
+        at 100 cams × 5000 landmarks)."""
         data, x0, _ = make_ba_problem(n_cams=16, n_pts=300, noise=1e-3,
                                       seed=0)
         x, out = to.matfree_optimize(

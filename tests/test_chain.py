@@ -94,7 +94,7 @@ class TestBlockTridiag:
         assert not bool(ok)
 
     def test_cyclic_reduction_matches_dense(self):
-        """The log-depth CR solve (the TPU backend of the chain solver,
+        """The log-depth CR solve (the GPU backend of the chain solver,
         where the N-step scan is latency-bound) is exact for every size
         parity/padding case."""
         rng = np.random.default_rng(5)
@@ -253,7 +253,7 @@ class TestSpdInvGJ:
     (TINYOPT_CR_SWEEP_INV=1) CR level math, not the default: on the
     ill-conditioned flagship reduced system the explicit inverse costs
     ~half a digit per solve vs cho_solve and stalls the LM trajectory
-    (measured on TPU 2026-08-21; ops/tridiag._cr_use_cholesky)."""
+    (ops/tridiag._cr_use_cholesky)."""
 
     @pytest.mark.parametrize("d", [1, 3, 6, 42, 60])
     def test_inverse_both_paths(self, d):

@@ -125,7 +125,8 @@ class TestMaxStdDev:
 
 
 class TestCovarianceAt:
-    """Post-hoc covariance for H-less solve paths (fused/matfree)."""
+    """Post-hoc covariance for H-less solve paths (save_last=False /
+    matfree)."""
 
     def test_matches_saved_hessian_covariance(self):
         import numpy as np

@@ -273,8 +273,7 @@ class TestLoopContract:
     @pytest.mark.parametrize("st", ["LBFGS", "Adam"])
     def test_vmap_batched(self, st):
         """First-order state vmaps: batched instances, per-instance
-        momentum/memory (TPU-native capability, no reference
-        counterpart)."""
+        momentum/memory (no reference counterpart)."""
         from tinyopt_tpu.optimize import build_solver
         opts = to.Options(solver_type=getattr(to, st), max_iters=400,
                           adam=to.AdamOptions(lr=0.1))

@@ -85,7 +85,7 @@ def test_detected_structure_is_superset(seed):
 
 class TestWindowBandFuzz:
     """Randomized layouts × masks for the r5 reduction family: the
-    windowed MXU reduce and the BAND-storage reduce must reproduce the
+    windowed matmul reduce and the BAND-storage reduce must reproduce the
     scatter pass's reduced system exactly (f64), including duplicate
     cameras within a landmark, contract cam-0 masked slots, and
     all-masked rows.
@@ -94,8 +94,9 @@ class TestWindowBandFuzz:
     bug ("double free or corruption") when these window-reduce
     programs execute after a shard_map program in the same process
     (deterministic with pytest fd-capture, absent with --capture=no —
-    heap-layout sensitive).  The window path is TPU-gated in
-    production; isolating the CPU fuzz keeps the suite immune.
+    heap-layout sensitive).  The window path is off by default on
+    every platform (schur_obs.window_default); isolating the CPU fuzz
+    keeps the suite immune.
     Diagnosed r5 — see also _reconstruct_S's scatter-free diagonal
     (a second, distinct XLA CPU miscompile isolated by this fuzz).
     """

@@ -97,7 +97,7 @@ class TestPowellSingular:
 
 class TestGenerateStarts:
     """Catch2 GENERATE analogue: sqrt2 across start points — batched
-    through vmap instead of a loop, the TPU-native pattern."""
+    through vmap instead of a loop, the batched pattern."""
 
     def test_sqrt2_multi_start_vmapped(self):
         starts = jnp.array([0.9, 1.0, 2.0, 4.0])

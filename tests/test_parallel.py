@@ -310,7 +310,7 @@ class TestShardedSchurObs:
 
     def test_windowed_sharded_reduce_matches(self, monkeypatch):
         """With the window reduce forced on, the sharded eliminate
-        uses per-device window tables + MXU onehot sums (r5); the f64
+        uses per-device window tables + onehot matmul sums; the f64
         trajectory must still equal the single-device solve."""
         monkeypatch.setenv("TINYOPT_WINDOW_REDUCE", "1")
         from tinyopt_tpu.parallel import sharded_schur_sparse_optimize

@@ -59,6 +59,30 @@ class TestPoseGraph:
         assert float(jnp.max(_pose_errors(x, true_poses))) < 1e-5
 
 
+    def test_repeat_calls_reuse_compiled_solve(self):
+        """pose_graph_optimize derives its (1, ·) anchor views per call;
+        small data leaves key the solve cache by value, so a second call
+        (and a call with an equal-valued copy of the data) reuses the
+        compiled solve instead of recompiling."""
+        from tinyopt_tpu import sparse
+        from tinyopt_tpu.models.pose_graph import pose_graph_optimize
+
+        data, x0, _ = make_pose_graph(n_poses=8, extra_loops=2,
+                                      noise=1e-3, seed=6)
+        opts = to.Options(max_consec_failures=0)
+        sparse._SOLVE_CACHE.clear()
+        x1, _ = pose_graph_optimize(x0, data, opts)
+        assert len(sparse._SOLVE_CACHE) == 1
+        x2, _ = pose_graph_optimize(x0, data, opts)
+        assert len(sparse._SOLVE_CACHE) == 1
+        np.testing.assert_array_equal(np.asarray(x1.translation),
+                                      np.asarray(x2.translation))
+        # a different anchor VALUE must not hit the same entry
+        moved = data._replace(anchor_t=data.anchor_t + 1.0)
+        pose_graph_optimize(x0, moved, opts)
+        assert len(sparse._SOLVE_CACHE) == 2
+
+
 class TestPoseGraphMarginals:
     def test_matches_dense_inverse(self):
         """SE3 pose marginals (Takahashi + Woodbury on the manifold

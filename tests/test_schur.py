@@ -694,7 +694,7 @@ class TestBandedGate:
 
 
 class TestWindowReduceAndSort:
-    """The windowed MXU segment reduction (ops/schur_obs.py r5) and the
+    """The windowed matmul segment reduction (ops/schur_obs.py) and the
     internal camera-locality landmark sort behind it: exact same algebra
     as the gather/scatter reduces, so f64 trajectories must match; the
     sort must activate exactly when the natural order defeats the
@@ -712,8 +712,8 @@ class TestWindowReduceAndSort:
                                 300, 6) is None
 
     def test_window_disabled_off_mxu_by_default(self):
-        """On the CPU backend the window reduce is extra flops with no
-        MXU to ride: the sort must not activate without the override."""
+        """The window reduce is off by default (schur_obs.window_default):
+        the sort must not activate without the override."""
         from tinyopt_tpu.models.bundle_adjustment import (
             make_ba_problem_sparse)
         from tinyopt_tpu.ops.schur_obs import camera_sort_perm

@@ -1,7 +1,7 @@
 """Sparse-path tests: block-diagonal Hessians and matrix-free GN-CG.
 
 Mirror of the reference tests/sparse.cpp:19-85 (diagonal problem with a
-sparse Hessian, AD into sparse H) re-expressed in the TPU-native
+sparse Hessian, AD into sparse H) re-expressed in the batched JAX
 formulations, plus equivalence checks against the dense path.
 """
 
@@ -220,7 +220,7 @@ class TestSparseOptimize:
 
     def test_vmap_batched_sparse(self):
         """The sparse system composes with vmap: batched general-sparse
-        solves (TPU-native capability, no reference counterpart)."""
+        solves (no reference counterpart)."""
         from tinyopt_tpu import manifold as mf
         from tinyopt_tpu.ops.coloring import probe_structure
         from tinyopt_tpu.sparse import sparse_system

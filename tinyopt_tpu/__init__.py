@@ -1,4 +1,4 @@
-"""tinyopt_tpu — a TPU-native nonlinear optimization framework.
+"""tinyopt_tpu — a JAX nonlinear optimization framework.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference C++ library (julien-michot/tinyopt, mounted at /root/reference):
@@ -6,8 +6,8 @@ non-linear least squares with Gauss-Newton and Levenberg-Marquardt, general
 unconstrained optimization with gradient descent, forward-mode AD of
 residuals on manifold tangent spaces, numerical differentiation, robust
 norms / M-estimators, Lie-group (SO3/SE3) parameters, covariance recovery —
-plus the TPU-native capabilities the reference lacks: batched instances via
-``vmap``, fused JᵀJ accumulation kernels, and mesh-sharded scale-out with
+plus the accelerator capabilities the reference lacks: batched instances via
+``vmap``, a batched CG kernel for the GPU, and mesh-sharded scale-out with
 ``psum``-reduced normal equations.
 """
 

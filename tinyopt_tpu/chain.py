@@ -15,7 +15,7 @@ O(N) iterations on a chain): pose graphs with thousands of poses and
 tens-to-hundreds of loop closures solve exactly per iteration.  The
 reference's sparse path delegates this to Eigen's SimplicialLDLT
 (reference: solvers/gn.h:63-74, math.h:266-277, tests/sparse.cpp:19-85);
-this is the TPU-first equivalent for chain+loops structure.
+this is the accelerator equivalent for chain+loops structure.
 
 Requirements: m ≪ N·d (many loop closures → use ``sparse_optimize`` /
 ``matfree_optimize``); the gauge must be fixed (anchor unary residual)
@@ -62,10 +62,10 @@ class ChainSystem(NamedTuple):
     def matvec(self, v: jax.Array) -> jax.Array:
         """H·v for a flat element-major tangent v (N·d,).
 
-        HIGHEST precision: TPU DEFAULT bf16-truncates dot_general
-        operands and the chain's O(N²) conditioning amplifies the
-        truncation (CLAUDE.md f32 discipline; the tridiag solves that
-        consume this system are already pinned)."""
+        HIGHEST precision: DEFAULT lets a GPU round f32 dot_general
+        operands to TF32 (10-bit mantissa), and the chain's O(N²)
+        conditioning amplifies that rounding (the tridiag solves that
+        consume this system are pinned the same way)."""
         N, d, _ = self.D.shape
         v2 = v.reshape(N, d)
         with jax.default_matmul_precision("highest"):
@@ -115,6 +115,19 @@ class ChainSystem(NamedTuple):
         from .ops.linalg import inv_cov
         from .ops.schur import _SchurCov
         return _SchurCov(inv_cov(self.to_dense()))
+
+
+#: Tridiagonal solve for ``method="auto"`` on each platform.  The CPU
+#: takes the sequential ``scan`` (fewest flops).  On an H100 the N-step
+#: scan of tiny ops is latency-bound: 11.6-11.8 s per 5000-pose solve
+#: against 0.13-0.22 s for log-depth cyclic reduction (both met the
+#: cost criterion).
+_CHAIN_METHOD = {"cpu": "scan", "gpu": "cr"}
+
+
+def default_chain_method(platform: str) -> str:
+    """Tridiagonal solve for ``method="auto"`` on ``platform``."""
+    return _CHAIN_METHOD[platform]
 
 
 def chain_system(x0, edge_fn: Callable, edges: np.ndarray, edge_data,
@@ -201,12 +214,11 @@ def chain_system(x0, edge_fn: Callable, edges: np.ndarray, edge_data,
         return jax.vmap(one)(x_n, unary_data)
 
     def accumulate(x):
-        # HIGHEST precision on every assembly contraction: on TPU f32,
-        # DEFAULT truncates dot_general operands to bf16 and the
-        # resulting Hessian/gradient error stalls the flagship f32
-        # pose-graph run (same failure mode as the Schur paths — see
-        # CLAUDE.md precision discipline; ops/tridiag.py pins its
-        # solves, but consumed D/B/U/g must be exact too).
+        # HIGHEST precision on every assembly contraction: DEFAULT lets
+        # a GPU round f32 dot_general operands to TF32, and the
+        # resulting Hessian/gradient error can stall an f32 pose-graph
+        # run (same failure mode as the Schur paths; ops/tridiag.py
+        # pins its solves, but consumed D/B/U/g must be exact too).
         x = mf.as_pytree(x)
         r, Ji, Jj = edge_linearize(x)
         rss = rss_exact(r)
@@ -272,12 +284,8 @@ def chain_system(x0, edge_fn: Callable, edges: np.ndarray, edge_data,
         add = jnp.where(H.diag == 0, lam, H.diag * lam)
         return H.D + eye * add[..., None, :]
 
-    # Tridiagonal backend: sequential scan on CPU (lowest flops), log-
-    # depth cyclic reduction on TPU — the N-step scan of tiny ops is
-    # LATENCY-bound there (measured 3.9 s per LM iteration at N=5000 on
-    # v5e vs ~ms for the 13-stage batched reduction).
     if method == "auto":
-        method = "cr" if jax.default_backend() == "tpu" else "scan"
+        method = default_chain_method(jax.default_backend())
     if method not in ("scan", "cr"):
         raise ValueError(f"method must be auto|scan|cr, got {method!r}")
 

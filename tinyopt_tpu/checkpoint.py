@@ -2,7 +2,7 @@
 
 The reference has no checkpointing (its solves are µs–ms scale;
 SURVEY.md §5.4) — its closest analogues are the ``InitWith`` warm start
-and the per-iteration history.  At TPU batch scale a solve can run long
+and the per-iteration history.  At accelerator batch scale a solve can run long
 enough to be worth checkpointing, so this module exposes the segmented
 loop execution (the same machinery as the ``max_duration_ms`` timeout
 driver — both build on ``optimize._segment_pair``) as a public API plus

@@ -20,15 +20,14 @@ def rss(r) -> jax.Array:
     """Σ r² — elementwise square + sum for f32, vdot otherwise.
 
     For FLOAT32, never jnp.vdot(r, r): vdot lowers to dot_general, and
-    TPU DEFAULT precision truncates f32 dot_general OPERANDS to bf16
-    (~0.4% relative error per element).  The optimizer's accept/reject
-    compares candidate costs whose difference near convergence is far
-    below 0.4%, so a bf16-squared cost makes LM mis-classify good steps
-    and stall (measured: 1000-camera corridor BA plateaus at 2.4e-3 rmse
-    with vdot costs vs converging under exact costs; noise 1e-3).
-    square+sum stays on the VPU in full f32 with f32 accumulation.
+    at DEFAULT precision a GPU may round f32 dot_general OPERANDS to TF32
+    (10-bit mantissa, ~1e-3 relative error per element).  The
+    optimizer's accept/reject compares candidate costs whose difference
+    near convergence is far smaller, so a rounded cost makes LM
+    mis-classify good steps and stall.  square+sum stays elementwise in
+    full f32 with f32 accumulation.
 
-    For FLOAT64 the truncation does not apply (f64 dots take a separate
+    For FLOAT64 the rounding does not apply (f64 dots take a separate
     exact path), so vdot is kept — switching the reduction order there
     changes eps-level cost differences enough to alter razor-edge f64
     trajectories (it regressed the Jennrich-Sampson singular-endgame

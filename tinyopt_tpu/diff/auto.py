@@ -1,11 +1,11 @@
 """Automatic differentiation of residual functions on the tangent space.
 
-TPU-native replacement of the reference's Ceres-Jet forward-mode autodiff
+JAX replacement of the reference's Ceres-Jet forward-mode autodiff
 (reference: include/tinyopt/3rdparty/ceres/jet.h, diff/auto_diff.h:17-140,
 diff/optimize_autodiff.h:23-170).  Instead of hand-rolled dual numbers, the
 residual function is differentiated with ``jax.jvp`` pushed over the
 identity tangent basis (forward mode, one pass per tangent dimension,
-vmapped so XLA fuses all passes into batched MXU-friendly linear algebra).
+vmapped so XLA fuses all passes into batched linear algebra).
 
 The "Accumulation function" contract — build ``grad = JᵀR`` and ``H = JᵀJ``
 without the user ever materializing J — is preserved: ``make_nlls_system``
@@ -87,7 +87,7 @@ def make_nlls_system(residual_fn, x0, spec: mf.TangentSpec,
         J = J.astype(spec.dtype)
         if print_J:
             jax.debug.print("J:{J}", J=J, ordered=False)
-        # JᵀR and JᵀJ with f32 accumulation on the MXU
+        # JᵀR and JᵀJ with f32 accumulation
         g = J.T @ r
         H = jnp.matmul(J.T, J, preferred_element_type=spec.dtype)
         cost = Cost.make(rss_exact(r), n_res)

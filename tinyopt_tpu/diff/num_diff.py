@@ -1,6 +1,6 @@
 """Numerical differentiation on manifold tangent spaces.
 
-TPU-native counterpart of the reference's finite-difference layer
+JAX counterpart of the reference's finite-difference layer
 (reference: include/tinyopt/diff/num_diff.h:20-311): forward / central /
 fast-central differences taken along the tangent basis through the
 manifold retraction, so user types with non-Euclidean parametrizations
@@ -8,8 +8,7 @@ manifold retraction, so user types with non-Euclidean parametrizations
 
 Instead of the reference's per-dimension host loop, the perturbed
 evaluations are ``vmap``-ed over the tangent basis — XLA compiles all
-``dims`` (or ``2·dims``) evaluations into one batched program, which is
-exactly the shape the MXU wants.
+``dims`` (or ``2·dims``) evaluations into one batched program.
 
 Default step sizes follow the reference's ``FloatEpsilon`` policy
 (reference: include/tinyopt/math.h:297-301): 1e-4 for float32, 1e-7 for

@@ -8,7 +8,7 @@ interpreted by shape, like the reference's scalar/vector/matrix overloads:
   * 1-D  (d,)     — per-coordinate variances (stdevs for whitening)
   * 2-D  (d, d)   — full covariance matrix
 
-Whitened residuals are the TPU-idiomatic way to use these inside residual
+Whitened residuals are the JAX-idiomatic way to use these inside residual
 functions: ``r' = W·r`` with ``‖r'‖² = ‖r‖²_Σ``, and AD carries the
 whitening into the Jacobian automatically.
 """

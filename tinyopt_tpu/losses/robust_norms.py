@@ -99,7 +99,7 @@ blake_zisserman_loss = _loss_of(blake_zisserman)
 def robust_whiten(r, robust_fn, th2):
     """Robust whitening: r' = √(ρ(n²)/n²) · r so that ‖r'‖² = ρ(n²) exactly.
 
-    The TPU-idiomatic way to use robust norms inside a residual function:
+    The JAX-idiomatic way to use robust norms inside a residual function:
     AD of r' carries the robustification into the Jacobian automatically,
     and the squared norm of the whitened residual IS the robust loss — so
     hard-rejecting norms (Truncated, Tukey) contribute their constant
@@ -169,7 +169,7 @@ def gnc_schedule(th_coarse, th_fine, steps: int = 5):
 # weakref so repeated anneal calls reuse the SAME whitened function
 # objects — the entry points' solve caches key on the function object,
 # so identity reuse is what makes the second anneal call compile
-# nothing (VERDICT r4 #6).
+# nothing.
 _GNC_FN_CACHE = None
 
 

@@ -1,6 +1,6 @@
 """Parameters-as-pytrees with a manifold (retraction) registry.
 
-This is the TPU-native re-design of the reference's ``params_trait`` system
+This is the JAX re-design of the reference's ``params_trait`` system
 (reference: include/tinyopt/traits.h:103-349), which provides per-type
 ``Dims`` (tangent dimension), ``cast`` (scalar promotion for Jets) and
 ``PlusEq`` (the retraction x ⊞ δ).

@@ -1,6 +1,6 @@
 """SO(3) rotation manifold (unit quaternion), JAX pytree + registered manifold.
 
-The TPU-native equivalent of the reference's Sophus/Lie++ trait
+The JAX equivalent of the reference's Sophus/Lie++ trait
 integrations (reference: include/tinyopt/3rdparty/traits/sophus.h:14-43):
 tangent dimension 3, retraction ``R ⊞ δ = R · exp(δ)`` (right-multiply),
 with AD-friendly, Taylor-guarded exp/log maps.
@@ -17,7 +17,6 @@ import jax
 import jax.numpy as jnp
 
 from ..manifold import Manifold, register_manifold
-from ..ops.kernel_math import arctan2 as _arctan2
 
 def _small(theta2):
     """Small-angle guard threshold, dtype-aware (f32-safe: no underflow)."""
@@ -60,9 +59,7 @@ def _log_quat(q):
     n2 = jnp.sum(qv * qv, axis=-1, keepdims=True)
     small = _small(n2)
     n = jnp.sqrt(jnp.where(small, 1.0, n2))
-    # kernel_math.arctan2: exact primitive on the XLA path, Mosaic-safe
-    # polynomial when traced into the fused Pallas kernel (no tpu atan2)
-    angle = 2.0 * _arctan2(n, jnp.abs(qw))
+    angle = 2.0 * jnp.arctan2(n, jnp.abs(qw))
     # angle/n ≈ 2/|qw| · (1 − n²/(3qw²)) for small n (the overall sign(qw)
     # factor below handles the quaternion double cover)
     aqw = jnp.maximum(jnp.abs(qw), 1e-3)

@@ -2,14 +2,14 @@
 
 The canonical large NLLS problem of the reference's domain (visual SLAM /
 SfM; the reference's roadmap targets exactly this space with its sparse
-solvers, reference README.md:165-167).  TPU-native formulation:
+solvers, reference README.md:165-167).  Formulation:
 
 * parameters are a pytree ``{"poses": SE3 (n_cams batched), "points":
   (n_pts, 3)}`` — mixed manifold + Euclidean blocks handled by the
   manifold layer (tangent = 6·n_cams + 3·n_pts);
 * observations are a DENSE (n_cams, n_pts, 2) tensor with a visibility
   mask (masked rows contribute zero residual and zero Jacobian) — the
-  static-shape, MXU-friendly layout, in place of the reference-style
+  static-shape, matmul-friendly layout, in place of the reference-style
   sparse observation lists;
 * the full solve runs through any backend: dense H for small problems,
   ``matfree_optimize`` (GN-CG) for large ones.

@@ -1,4 +1,4 @@
-"""Iterative Closest Point (ICP) — point-cloud registration, TPU-native.
+"""Iterative Closest Point (ICP) — point-cloud registration, batched.
 
 The reference's manifold tests stop at pose priors (tests/sophus.cpp);
 ICP is the model family those building blocks exist for: align a source
@@ -6,10 +6,9 @@ cloud to a destination cloud with UNKNOWN correspondences by alternating
 
   1. correspondence search: nearest destination point for every
      (currently-transformed) source point — computed as one dense
-     (N, M) squared-distance matrix whose cross term is a single MXU
-     matmul (brute force IS the TPU-native spatial query: at
-     N = M = 10⁴ the matmul costs ~µs while tree-based neighbor search
-     does not vectorize at all);
+     (N, M) squared-distance matrix whose cross term is a single
+     matmul (brute force IS the accelerator's spatial query:
+     tree-based neighbor search does not vectorize at all);
   2. pose refinement: damped Gauss-Newton/LM on the SE(3) tangent for
      the point-to-point residuals of the matched pairs, with optional
      per-point Huber whitening for outlier/partial-overlap robustness.
@@ -39,8 +38,8 @@ from ..options import Options
 def nearest_neighbors(src: jax.Array, dst: jax.Array) -> jax.Array:
     """Index of the nearest ``dst`` point for every ``src`` point.
 
-    ‖s − d‖² = ‖s‖² − 2·s·d + ‖d‖²; the (N, M) cross term is one MXU
-    matmul and the row argmin vectorizes on the VPU.
+    ‖s − d‖² = ‖s‖² − 2·s·d + ‖d‖²; the (N, M) cross term is one
+    matmul and the row argmin vectorizes.
     """
     acc_t = jnp.promote_types(src.dtype, jnp.float32)
     cross = jnp.matmul(src, dst.T, preferred_element_type=acc_t)
@@ -75,8 +74,8 @@ def icp(src: jax.Array, dst: jax.Array, pose0: SE3 | None = None,
     (the correspondence matmul batches to (B, N, M)).
 
     ICP is non-convex: a far initial pose can land in a correspondence
-    local minimum (measured on v5e: 491/512 random 0.3-scale poses
-    register to <0.01 from identity; the rest need a better start).
+    local minimum (most random 0.3-scale poses register to <0.01 from
+    identity; the rest need a better start).
     Use :func:`icp_multi_start` or a global initializer when the prior
     pose is weak.
     """

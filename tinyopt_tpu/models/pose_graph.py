@@ -6,7 +6,7 @@ measurements; residual of edge (i, j) with measurement Ẑᵢⱼ:
 
     r_ij = log(Ẑᵢⱼ⁻¹ · Xᵢ⁻¹ · Xⱼ)      ∈ ℝ⁶
 
-TPU-native formulation: the edge list is a DENSE static (E, 2) index
+Formulation: the edge list is a DENSE static (E, 2) index
 array; per-edge residuals are gathered + vmapped (static shapes, batched
 Lie ops), and the pose block is one batched-SE3 leaf.  Gauge freedom is
 fixed by a prior residual on pose 0.
@@ -135,14 +135,12 @@ def pose_graph_optimize(x0: SE3, data: PoseGraphData, options=None,
     """
     from ..chain import chain_optimize
 
-    def anchor_fn(x_n: SE3, dd):
-        q, t = dd
-        return (SE3(SO3(q), t).inverse() @ x_n).log()
-
+    # module-level anchor: a fresh closure per call would miss the
+    # compiled-solve cache (sparse._SOLVE_CACHE keys on the function)
     return chain_optimize(
         x0, pose_graph_edge_fn, np.asarray(data.edges),
         (data.meas_q, data.meas_t), options,
-        unary_fn=anchor_fn, unary_nodes=np.asarray([0]),
+        unary_fn=_anchor_fn, unary_nodes=np.asarray([0]),
         unary_data=(data.anchor_q[None], data.anchor_t[None]), **kw)
 
 

@@ -68,8 +68,6 @@ def prior_residual(x, data: PriorProblem):
 def sparse_diag_residual(x):
     """Independent per-coordinate problem (benchmarks/sparse.cpp): block-
     diagonal JᵀJ.  r_i = x_i² − i."""
-    # integer iota + cast: Mosaic (the fused whole-solve kernel) has no
-    # floating-point tpu.iota
     targets = jnp.arange(1, x.shape[0] + 1, dtype=jnp.int32).astype(x.dtype)
     return x * x - targets
 
@@ -128,7 +126,7 @@ def himmelblau_residuals(p):
 
 def jennrich_sampson_residuals(p, m: int = 10):
     x1, x2 = p
-    i = jnp.arange(1, m + 1, dtype=jnp.int32).astype(p.dtype)  # int iota: Mosaic-safe
+    i = jnp.arange(1, m + 1, dtype=jnp.int32).astype(p.dtype)
     return 2.0 + 2.0 * i - (jnp.exp(i * x1) + jnp.exp(i * x2))
 
 

@@ -1,6 +1,6 @@
 // tinyopt_tpu native micro-runtime.
 //
-// The TPU path (JAX/XLA) is the right tool for batched and large solves,
+// The accelerator path (JAX/XLA) is the right tool for batched and large solves,
 // but a single tiny solve (dims <= ~64) is dominated by dispatch latency
 // there.  The reference library's headline benchmarks are exactly this
 // regime: microsecond dense LM solves on the host (reference:

@@ -1,9 +1,9 @@
 """Block-diagonal Hessian representation.
 
-The TPU-native counterpart of the reference's sparse-Hessian path
+The JAX counterpart of the reference's sparse-Hessian path
 (reference: include/tinyopt/solvers/gn.h:63-74, math.h:266-277 — general
-``SparseMatrix`` + ``SimplicialLDLT``): on TPU, unstructured sparse
-factorizations are hostile to the MXU, but the sparsity that actually
+``SparseMatrix`` + ``SimplicialLDLT``): on an accelerator, unstructured
+sparse factorizations are hostile to wide SIMD, but the sparsity that actually
 occurs in NLLS normal equations is *block* structure (independent
 parameter blocks — e.g. the diagonal problem of benchmarks/sparse.cpp, or
 per-landmark blocks in bundle adjustment).  A batched dense Cholesky over

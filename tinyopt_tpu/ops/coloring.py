@@ -1,40 +1,25 @@
-"""Curtis–Powell–Reid column coloring for matrix-free diag(JᵀJ).
-
-The fused whole-solve kernel (ops/pallas_solver.py) needs diag(H) = diag(JᵀJ)
-every outer iteration — for the reference's multiplicative LM damping
-(lm.h:107-117) and the Jacobi preconditioner — but never the full J.  The
-generic matrix-free construction costs one jvp sweep per tangent dimension
-(diag_j = ‖J e_j‖²), which dominates kernel time for mid-size dense dims.
+"""Jacobian structure probing and Curtis–Powell–Reid column coloring.
 
 Most real NLLS Jacobians are column-sparse: a residual row depends on a few
 parameters (per-coordinate priors are diagonal; bundle adjustment rows touch
 one pose + one landmark).  Curtis–Powell–Reid (1974): columns whose supports
 are disjoint can share ONE probe tangent p_c = Σ_{j∈c} e_j, because row i of
-J·p_c then equals the single J_ij with i ∈ supp(j), j ∈ c.  diag recovery is
-a constant one-hot contraction:
-
-    diag_j = Σ_i (J p_{color(j)})_i² · S_ij        (S = support structure)
-
-i.e. ``diag = concat_c (J p_c)² @ M`` with M[(c,i),j] = S_ij·[color(j)=c] —
-one MXU matmul.  A diagonal J (the dense-prior benchmark suite) collapses
-from d sweeps to 1; bundle-adjustment-style structures need a handful.
+J·p_c then equals the single J_ij with i ∈ supp(j), j ∈ c.  The general-sparse
+Hessian assembly (``sparse.sparse_optimize``) uses this to build J with one
+jvp sweep per color instead of one per tangent dimension.
 
 Structure is detected at solver-BUILD time by probing the dense Jacobian of
 the example instance at a few deterministic pseudo-random points (parameters
 retracted by random tangents, float data leaves perturbed), then OR-ing the
 nonzero patterns.  Value sparsity that is accidental at one point (including
-{0,1} masks in the data) is broken by the perturbations; only residuals
-whose sparsity STRUCTURE differs across batch instances in ways no
-perturbation of the example instance reveals need
-``HessianOptions.diag_coloring="off"``.
+{0,1} masks in the data) is broken by the perturbations.
 
-No reference counterpart (the reference materializes dense H, where the
-diagonal is free); this is the TPU-native answer to the same need.
+No reference counterpart (the reference assembles its sparse H from the
+user's accumulation function directly).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
@@ -42,24 +27,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# Detection is best-effort: any failure falls back to the generic
-# per-dimension sweeps.  Set TINYOPT_COLORING_DEBUG=1 to re-raise instead.
+# Detection is best-effort: any failure returns None to the caller.  Set
+# TINYOPT_COLORING_DEBUG=1 to re-raise instead.
 _DEBUG = bool(os.environ.get("TINYOPT_COLORING_DEBUG"))
-
-
-@dataclasses.dataclass(frozen=True)
-class DiagColoring:
-    """Static coloring data embedded into the kernel as constants."""
-    probes: np.ndarray      # (C, d) f32: probe tangent per color
-    recovery: np.ndarray    # (C * n_res, d) f32: one-hot diag recovery
-    n_colors: int
-    #: The structure is exactly the identity (J diagonal with row i ↔
-    #: dim i): diag recovery reduces to squaring the single probe sweep
-    #: and slicing its first d lanes — the kernel skips the (BT, C·n) @
-    #: (C·n, d) HIGHEST-precision recovery matmul entirely (it costs
-    #: ~6 MXU passes per outer iteration, a measurable slice of the
-    #: latency-bound kernel's budget).
-    identity: bool = False
 
 
 def _greedy_color(structure: np.ndarray) -> np.ndarray:
@@ -154,42 +124,3 @@ def probe_structure(residual_fn, x_example, data_example, spec,
             raise
         return None
     return structure
-
-
-def detect_diag_coloring(residual_fn, x_example, data_example, spec,
-                         n_res: int, dims: int, dtype,
-                         *, n_probes: int = 3,
-                         max_recovery_bytes: int = 4 * 1024 * 1024
-                         ) -> DiagColoring | None:
-    """Probe the tangent Jacobian structure and color it, or ``None``.
-
-    Returns ``None`` when detection fails, the structure is too dense to
-    pay off (needs ≥ max(1, d/2) colors — the per-dimension sweeps are then
-    comparable), or the recovery constant would blow the VMEM budget.
-    """
-    structure = probe_structure(residual_fn, x_example, data_example, spec,
-                                n_res, dims, n_probes=n_probes)
-    if structure is None:
-        return None
-
-    colors = _greedy_color(structure)
-    n_colors = int(colors.max()) + 1 if dims else 1
-    if n_colors > max(1, dims // 2):
-        return None
-    if n_colors * n_res * dims * np.dtype(dtype).itemsize \
-            > max_recovery_bytes:
-        return None
-
-    probes = np.zeros((n_colors, dims), dtype=np.dtype(dtype))
-    recovery = np.zeros((n_colors, n_res, dims), dtype=np.dtype(dtype))
-    for j in range(dims):
-        c = int(colors[j])
-        probes[c, j] = 1.0
-        recovery[c, :, j] = structure[:, j]
-    identity = bool(
-        n_colors == 1 and n_res >= dims
-        and np.array_equal(structure[:dims], np.eye(dims, dtype=bool))
-        and not structure[dims:].any())
-    return DiagColoring(probes=probes,
-                        recovery=recovery.reshape(n_colors * n_res, dims),
-                        n_colors=n_colors, identity=identity)

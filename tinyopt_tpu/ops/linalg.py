@@ -1,13 +1,13 @@
 """Dense linear-algebra primitives for the normal-equation solves.
 
-TPU-native replacement of the reference's Eigen LDLT layer (reference:
+JAX replacement of the reference's Eigen LDLT layer (reference:
 include/tinyopt/math.h:232-277).  XLA's Cholesky does not report
 factorization failure like Eigen's ``info()`` — it produces NaNs — so PSD
 failure detection is a NaN check on the solution, which routes to the same
 λ-escalation path as the reference (SURVEY.md §7 hard parts).
 
 All functions are batched-friendly (leading batch dims broadcast) and keep
-matmuls in the input dtype with float32 accumulation on TPU.
+matmuls in the input dtype.
 """
 
 from __future__ import annotations
@@ -73,12 +73,12 @@ def solve_psd(H: jax.Array, b: jax.Array, use_cholesky: bool = True):
         return dx, jnp.ones(H.shape[:-2], bool)
 
 
-def pcg_core(matvec, dinv: jax.Array, b: jax.Array, iters: int,
-             unroll: bool = False) -> jax.Array:
+def pcg_core(matvec, dinv: jax.Array, b: jax.Array, iters: int
+             ) -> jax.Array:
     """Jacobi-preconditioned CG — the ONE implementation every dispatch
-    path runs (the plain XLA solve below, the fused batched-CG Pallas
-    kernel, and the whole-solve kernel all call this), so the iterates
-    are structurally identical across paths.
+    path runs (the plain XLA solve below and the batched-CG Triton
+    kernel both call this), so the iterates are structurally identical
+    across paths.
 
     ``matvec``: (..., d) -> (..., d) applying the (damped) normal matrix;
     ``dinv``: inverse of its diagonal (1 where non-positive) — or a
@@ -91,9 +91,7 @@ def pcg_core(matvec, dinv: jax.Array, b: jax.Array, iters: int,
     (p·Hp ≤ tiny — null space or indefinite damping corner) FREEZES the
     iterate (α = 0) instead of being clamped into a huge garbage step;
     once p is in the null space it stays there, so x keeps the last valid
-    value.  ``unroll=True`` traces the iterations straight-line (inside
-    Pallas kernels the per-trip loop management is comparable to the
-    small vector work).
+    value.
     """
     eps = jnp.finfo(b.dtype).tiny
     prec = dinv if callable(dinv) else (lambda r: r * dinv)
@@ -118,24 +116,20 @@ def pcg_core(matvec, dinv: jax.Array, b: jax.Array, iters: int,
         p = z + (rz_new / jnp.maximum(rz, eps))[..., None] * p
         return x, r, p, rz_new
 
-    carry = (x0, r0, z0, rz0)
-    if unroll:
-        for _ in range(iters):
-            carry = body(0, carry)
-        return carry[0]
-    x, _, _, _ = jax.lax.fori_loop(0, iters, body, carry)
+    x, _, _, _ = jax.lax.fori_loop(0, iters, body, (x0, r0, z0, rz0))
     return x
 
 
 def solve_psd_cg(H: jax.Array, b: jax.Array, iters: int) -> jax.Array:
     """Batched conjugate-gradient solve of ``H dx = b``.
 
-    On TPU, XLA's batched Cholesky of many small matrices is a sequential
-    scalar-heavy kernel (~100 ms for 10k×50×50), while CG is nothing but
-    batched matvecs that map straight onto the MXU (~0.1 ms measured for
-    the same workload — three orders of magnitude).  For LM the solve may
-    be inexact: a poor step is rejected and λ escalates, so fixed-iteration
-    CG composes safely with the outer loop (inexact/truncated LM).
+    XLA's batched Cholesky of many small matrices is a sequential
+    scalar-heavy kernel, while CG is nothing but batched matvecs.  This
+    is the plain reference of the batched Triton kernel
+    (ops/pallas_cg.py), and its path wherever the kernel is not chosen.
+    For LM the solve may be inexact: a poor step is rejected and λ
+    escalates, so fixed-iteration CG composes safely with the outer loop
+    (inexact/truncated LM).
 
     ``H``: (..., d, d), ``b``: (..., d).
     """
@@ -174,8 +168,8 @@ def refine_psd_solve(H: jax.Array, b: jax.Array, x: jax.Array,
     """Mixed-precision iterative refinement of an f32 PSD solve.
 
     Each round computes the residual ``r = b − H·x`` in float64 (one
-    matvec — cheap even emulated on TPU; needs ``jax_enable_x64``, else
-    it silently runs in working precision and improves nothing) and
+    matvec; needs ``jax_enable_x64``, else it silently runs in working
+    precision and improves nothing) and
     re-solves for the correction at working precision.  Forward error
     contracts by ~eps·cond(H) per round, so a few rounds recover
     near-f64-quality solutions from an f32 factorization whenever

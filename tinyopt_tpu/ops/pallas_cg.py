@@ -1,22 +1,23 @@
-"""Fused batched-CG Pallas kernel for the LM normal-equation solves.
+"""Batched conjugate-gradient solve as one Pallas kernel through Triton.
 
-The performance-critical step of batched LM is solving thousands of small
-damped systems ``(H_b + λD_b) dx_b = −g_b``.  The XLA lowering of a
-batched CG re-reads the whole H tensor (batch × d × d, ~100 MB for the
-headline bench) from HBM on EVERY CG iteration — profiling shows this one
-multiply-reduce dominates the solve.  This kernel tiles the batch, loads
-each H tile into VMEM ONCE, and runs all CG iterations on-chip: HBM
+Under ``vmap`` (the batched solvers) every LM iteration solves thousands
+of small damped systems ``(H_b + λD_b) dx_b = −g_b`` with a fixed number
+of Jacobi-preconditioned CG iterations.  XLA's version
+(:func:`~tinyopt_tpu.ops.linalg.solve_psd_cg`) reads the whole H tensor
+from device memory on every CG iteration — ``B·d²`` words, 100 MB at
+B = 10k, d = 50 in f32, twice an H100's L2.  This kernel loads each
+instance's H into registers once and runs every iteration there, so the
 traffic drops from ``iters × |H|`` to ``|H|``.
 
-Integration is transparent: :func:`cg_solve` is a ``custom_vmap`` —
-called un-batched (inside the per-instance optimizer loop) it is a plain
-CG; under ``vmap`` (the batched/sharded solvers) the batching rule fires
-once with the full batch and dispatches to the fused kernel on TPU
-backends, falling back to the XLA path elsewhere (CPU tests, interpreters).
+Integration: :func:`make_cg_solver` is a ``custom_vmap``.  Called
+un-batched (inside the per-instance optimizer loop) it is the plain CG;
+under ``vmap`` its rule sees the whole batch once and
+:func:`use_triton_cg` picks the kernel or XLA from the platform and the
+padded width.  Both run :func:`~tinyopt_tpu.ops.linalg.pcg_core`, so the
+iterates agree up to f32 summation order.
 
 No reference counterpart: the reference is single-instance (SURVEY.md
-§2.3); this kernel is the core of the "fused accumulate/solve ≥95% of
-roofline" deliverable (BASELINE.md).
+§2.3).
 """
 
 from __future__ import annotations
@@ -26,111 +27,93 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from .linalg import pcg_core, solve_psd_cg  # noqa: F401 - pcg_core re-exported for the whole-solve kernel
+from .linalg import pcg_core, solve_psd_cg
+
+#: Padded widths (``d`` rounded up to a power of two, which the Triton
+#: route requires of every block) the kernel takes.  Above the upper
+#: bound one instance's (D, D) block no longer fits a program's
+#: registers (D = 256 is 64k words, the whole SM's register file).
+MIN_PADDED_D = 8
+MAX_PADDED_D = 128
+#: Words of H each program holds: a program solves
+#: ``max(1, _PROGRAM_WORDS // D²)`` instances with 8 warps, the CG loop
+#: inside (four at d = 50; on an H100 at B = 10k, d = 50, 8 iterations,
+#: one, two and four instances per program took 0.54, 0.51 and 0.48 ms).
+_PROGRAM_WORDS = 16384
 
 
-def eye_mask(d: int, dtype) -> jax.Array:
-    """(d, d) identity built from iotas (no gather — Mosaic-compatible)."""
-    ii = jax.lax.broadcasted_iota(jnp.int32, (d, d), 0)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (d, d), 1)
-    return (ii == jj).astype(dtype)
+def padded_width(d: int) -> int:
+    """``d`` rounded up to the next power of two."""
+    return 1 << max(d - 1, 0).bit_length()
 
 
-def pcg_on_values(H: jax.Array, b: jax.Array, iters: int) -> jax.Array:
-    """Jacobi-preconditioned CG on a VMEM-resident explicit H.
+def use_triton_cg(platform: str, d: int, batch: int) -> bool:
+    """Whether a batched CG of ``batch`` systems of width ``d`` runs the
+    Triton kernel: only on a GPU, only for padded widths within
+    [``MIN_PADDED_D``, ``MAX_PADDED_D``], and only while the kernel's
+    32-bit element offsets into the flattened H cannot overflow."""
+    D = padded_width(d)
+    return (platform == "gpu" and MIN_PADDED_D <= D <= MAX_PADDED_D
+            and batch * d * d < 2 ** 31)
 
-    ``H``: (BT, d, d), ``b``: (BT, d).  Used by the standalone CG kernel;
-    math identical to :func:`~tinyopt_tpu.ops.linalg.solve_psd_cg` so the
-    XLA fallback and the kernel produce the same iterates.
-    """
-    d = H.shape[-1]
 
-    import os
-    # "lane" (VPU multiply + lane reduction) measured marginally faster
-    # than the MXU dot_general for the small-d batched matvec; "sublane"
-    # (legal because H is symmetric) measured slower.
-    _mv = os.environ.get("TINYOPT_CG_MATVEC", "lane")
-
-    def matvec(p):
-        # Batched matvec on VMEM-resident H: contract j of (BT, D, j)
-        # with (BT, j) — batch dim 0.  The "sublane" variant exploits H's
-        # symmetry to reduce over the sublane axis instead (VPU-friendly).
-        if _mv == "sublane":
-            return jnp.sum(H * p[:, :, None], axis=1)
-        if _mv == "lane":
-            return jnp.sum(H * p[:, None, :], axis=2)
-        return jax.lax.dot_general(
-            H, p, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32).astype(b.dtype)
-
-    # Jacobi (diagonal) preconditioner: for LM-damped JᵀJ this roughly
-    # halves the iterations needed for a given accuracy — the single
-    # biggest lever on kernel time.  diag extracted with an iota mask
-    # (no gather in Mosaic).
-    eye = eye_mask(d, b.dtype)
-    diag = jnp.sum(H * eye[None, :, :], axis=2)
+def _cg_kernel(H_ref, b_ref, x_ref, *, n: int, d: int, D: int, bt: int,
+               iters: int):
+    inst = pl.program_id(0) * bt + jnp.arange(bt)
+    valid = inst < n
+    row = jnp.arange(D)
+    live = valid[:, None] & (row < d)[None, :]                   # (bt, D)
+    h_mask = live[:, :, None] & (row < d)[None, None, :]         # (bt, D, D)
+    h_off = (inst[:, None, None] * (d * d) + row[None, :, None] * d
+             + row[None, None, :])
+    v_off = inst[:, None] * d + row[None, :]
+    H = plgpu.load(H_ref.at[h_off], mask=h_mask, other=0.0)
+    b = plgpu.load(b_ref.at[v_off], mask=live, other=0.0)
+    # Padding: identity on the padded diagonal (and for whole padded
+    # instances) with a zero right-hand side, which CG leaves at zero.
+    eye = (row[:, None] == row[None, :]).astype(H.dtype)
+    H = H + jnp.where(live[:, :, None], 0.0, eye[None])
+    diag = jnp.sum(H * eye[None], axis=2)
     dinv = jnp.where(diag > 0, 1.0 / jnp.where(diag > 0, diag, 1.0), 1.0)
-    return pcg_core(matvec, dinv, b, iters)
+    # Matvec as a multiply and a row reduction in full f32: no tensor
+    # cores, so no TF32 rounding.
+    x = pcg_core(lambda p: jnp.sum(H * p[:, None, :], axis=2), dinv, b,
+                 iters)
+    plgpu.store(x_ref.at[v_off], x.astype(x_ref.dtype), mask=live)
 
 
-def _cg_kernel(H_ref, b_ref, x_ref, *, iters: int):
-    x_ref[:] = pcg_on_values(H_ref[:], b_ref[:], iters)
+def batched_cg_triton(H: jax.Array, b: jax.Array, iters: int,
+                      interpret: bool = False) -> jax.Array:
+    """Solve B systems ``H[i] x = b[i]`` with the register-resident CG.
 
-
-def batched_cg_tpu(H: jax.Array, b: jax.Array, iters: int,
-                   block: int = 256) -> jax.Array:
-    """Solve B systems ``H[i] x = b[i]`` with the fused VMEM-resident CG.
-
-    H: (B, d, d), b: (B, d).  B is padded to a multiple of ``block``
-    (padded systems solve I·x = 0, which CG leaves at 0).
+    ``H``: (B, d, d), ``b``: (B, d).  Each program loads its instances'
+    blocks padded to (D, D), D = :func:`padded_width` (d), by masked
+    loads from the flattened arrays, so no padded copy of H is written.
+    ``interpret=True`` runs the same kernel on the CPU (tests).
     """
     B, d, _ = H.shape
-    # Keep the H tile + CG vectors inside VMEM (~16 MB/core).  Mosaic pads
-    # the trailing dims to the (sublane, lane) tile — (8, 128) for f32 —
-    # and double-buffers input blocks across grid steps, so budget on the
-    # padded, doubled footprint.
-    d_sub = ((d + 7) // 8) * 8
-    d_lane = ((d + 127) // 128) * 128
-    bytes_per_inst = (d_sub * d_lane + 5 * d_lane) * H.dtype.itemsize
-    while block > 8 and 2 * block * bytes_per_inst > 10 * 1024 * 1024:
-        block //= 2
-    if 2 * block * bytes_per_inst > 10 * 1024 * 1024:
-        # Even one minimal tile exceeds the VMEM budget (very large d):
-        # degrade to the XLA path instead of failing Mosaic compilation.
-        return solve_psd_cg(H, b, iters)
-    Bp = ((B + block - 1) // block) * block
-    if Bp != B:
-        pad = Bp - B
-        eye = jnp.broadcast_to(jnp.eye(d, dtype=H.dtype), (pad, d, d))
-        H = jnp.concatenate([H, eye], axis=0)
-        b = jnp.concatenate([b, jnp.zeros((pad, d), b.dtype)], axis=0)
-
-    out = pl.pallas_call(
-        functools.partial(_cg_kernel, iters=iters),
-        grid=(Bp // block,),
-        in_specs=[
-            pl.BlockSpec((block, d, d), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block, d), lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((block, d), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((Bp, d), b.dtype),
-    )(H, b)
-    return out[:B]
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover - backend probing never fatal
-        return False
+    D = padded_width(d)
+    bt = max(1, _PROGRAM_WORDS // (D * D))
+    x = pl.pallas_call(
+        functools.partial(_cg_kernel, n=B, d=d, D=D, bt=bt, iters=iters),
+        grid=(pl.cdiv(B, bt),),
+        out_shape=jax.ShapeDtypeStruct((B * d,), b.dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=8, num_stages=1),
+        interpret=interpret,
+        name="tinyopt_batched_cg",
+    )(H.reshape(-1), b.reshape(-1))
+    return x.reshape(B, d)
 
 
 def make_cg_solver(iters: int):
     """A ``custom_vmap``-wrapped CG solve: (d,d),(d,) -> (d,).
 
     Unbatched → plain XLA CG.  vmapped (the batched optimizer) → one call
-    on the whole batch, dispatched to the fused Pallas kernel on TPU.
+    on the whole batch, on the Triton kernel where :func:`use_triton_cg`
+    says so and on XLA otherwise.
     """
 
     @jax.custom_batching.custom_vmap
@@ -144,17 +127,11 @@ def make_cg_solver(iters: int):
             H = jnp.broadcast_to(H, (axis_size,) + H.shape)
         if not b_b:
             b = jnp.broadcast_to(b, (axis_size,) + b.shape)
-        if _on_tpu() and H.ndim == 3:
-            out = batched_cg_tpu(H, b, iters)
-        elif _on_tpu() and H.ndim > 3:
-            # Nested vmap: collapse the leading batch axes so the fused
-            # kernel still handles the whole (B1·…·Bk, d, d) batch.
-            lead = H.shape[:-2]
-            out = batched_cg_tpu(H.reshape((-1,) + H.shape[-2:]),
-                                 b.reshape((-1, b.shape[-1])), iters)
-            out = out.reshape(lead + (b.shape[-1],))
-        else:
-            out = solve_psd_cg(H, b, iters)
-        return out, True
+        if not use_triton_cg(jax.default_backend(), b.shape[-1],
+                             axis_size):
+            return solve_psd_cg(H, b, iters), True
+        # Under a second vmap the kernel call itself is batched (one
+        # more grid axis).
+        return batched_cg_triton(H, b, iters), True
 
     return cg

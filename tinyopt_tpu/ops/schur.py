@@ -19,9 +19,9 @@ the reduced camera system
 et al. 1999), and the regime the reference concedes ("not fast for large
 systems yet", /root/reference/README.md:30).
 
-TPU-native formulation: observations live in a DENSE (n_a, n_b) grid with
+Formulation: observations live in a DENSE (n_a, n_b) grid with
 a visibility mask (zero rows contribute zero residual AND zero Jacobian),
-so every stage is a batched einsum on the MXU — per-pair Jacobians by
+so every stage is a batched einsum — per-pair Jacobians by
 vmapped forward-mode AD, the block products (Ba, C, E, g), the batched
 3x3 (db x db) Cholesky inverse of C, the S assembly, and one dense
 Cholesky of the (n_a·da)² reduced system.  J and the full H never exist;
@@ -53,8 +53,8 @@ from .linalg import inv_cov, solve_psd
 
 def _esum(spec, *ops, **kw):
     """einsum pinned to HIGHEST multiply precision (see
-    ops/schur_obs._esum: TPU DEFAULT truncates f32 multiplies to bf16,
-    corrupting the assembled blocks; the assembly contractions are
+    ops/schur_obs._esum: at DEFAULT a GPU may round f32 multiplies to
+    TF32, corrupting the assembled blocks; the assembly contractions are
     bandwidth-bound so the exact multiply is ~free)."""
     kw.setdefault("precision", jax.lax.Precision.HIGHEST)
     return jnp.einsum(spec, *ops, **kw)
@@ -283,8 +283,8 @@ def schur_eliminate(E, Bd, Cd, g_a, g_b, use_cholesky=True,
     db = g_b.shape[-1]
 
     # Batched inverse of the damped B-side blocks (db x db, PSD).
-    # Closed-form adjugate at db<=3 (pure exact-f32 VPU math; XLA's
-    # batched Cholesky is a ~1%-of-peak sequential kernel), Cholesky
+    # Closed-form adjugate at db<=3 (pure exact-f32 elementwise math;
+    # XLA's batched Cholesky is a sequential kernel), Cholesky
     # fallback above: a non-PSD block yields NaNs either way -> ok
     # False -> the loop's λ-escalation (optimizer.h:356-399 route).
     from .schur_obs import spd_inv_blocks

@@ -1,13 +1,13 @@
 """General sparse symmetric Hessian (static coordinate pattern).
 
-The TPU-native counterpart of the reference's *general* ``SparseMatrix``
+The JAX counterpart of the reference's *general* ``SparseMatrix``
 Hessian (reference: include/tinyopt/types.h:36-38, solvers/gn.h:63-74)
 factored by ``SimplicialLDLT`` (math.h:266-277).  A sequential sparse
-factorization is hostile to the MXU; instead the pattern is fixed at trace
+factorization is hostile to wide SIMD; instead the pattern is fixed at trace
 time (NLLS sparsity is structural, not value-dependent) and the damped
 normal equations are solved with Jacobi-preconditioned conjugate
-gradients, whose matvec is one gather + multiply + scatter-add — exactly
-the shape XLA maps well to TPU.
+gradients, whose matvec is one gather + multiply + scatter-add — a shape
+XLA maps well to an accelerator.
 
 Matches the reference's semantics:
 

@@ -6,8 +6,8 @@ are coupled by measurements (block-tridiagonal H₀) plus a handful of
 loop-closure measurements that couple distant blocks (a rank-m update
 U·Uᵀ with m = Σ loop residual dims ≪ N·d).
 
-TPU-native design notes
------------------------
+Design notes
+------------
 * The factorization is ONE ``lax.scan`` over the N blocks — the block
   recurrence is inherently sequential (each step's Cholesky depends on
   the previous factor), but every step is a fixed bundle of tiny (d×d)
@@ -27,7 +27,7 @@ TPU-native design notes
 
 The reference has no counterpart — its sparse path hands the whole
 pattern to Eigen's SimplicialLDLT (reference: solvers/gn.h:63-74,
-math.h:266-277); this module is the TPU-first replacement for the
+math.h:266-277); this module is the accelerator replacement for the
 chain+loops regime (see tinyopt_tpu/chain.py for the optimizer entry).
 """
 
@@ -58,9 +58,9 @@ def block_tridiag_factor(D: jax.Array, B: jax.Array):
         L_i = jnp.linalg.cholesky(D_i - M_i @ M_i.T)
         return L_i, (L_i, M_i)
 
-    # HIGHEST matmul precision throughout: TPU DEFAULT bf16-truncates
-    # dot_general operands and the chain's O(N²) conditioning amplifies
-    # the truncation into factorization failure (CLAUDE.md discipline).
+    # HIGHEST matmul precision throughout: at DEFAULT a GPU may round
+    # dot_general operands to TF32, and the chain's O(N²) conditioning
+    # amplifies the rounding into factorization failure.
     with jax.default_matmul_precision("highest"):
         L0 = jnp.linalg.cholesky(D[0])
         if N == 1:
@@ -134,8 +134,8 @@ def block_tridiag_selected_inverse(L: jax.Array, M: jax.Array
     pose marginals of an N-pose graph cost the same as one extra
     factorization instead of the O(N²·d²) dense inverse (the reference's
     covariance densifies: math.h:88-189).  Returns Σ_ii (N, d, d).
-    HIGHEST precision throughout (chain conditioning amplifies TPU
-    DEFAULT's bf16 truncation — module docstring).
+    HIGHEST precision throughout (chain conditioning amplifies the TF32
+    rounding a GPU may apply at DEFAULT — :func:`block_tridiag_factor`).
     """
     N, d, _ = L.shape
     eye = jnp.eye(d, dtype=L.dtype)
@@ -234,16 +234,14 @@ def tridiag_woodbury_marginals(D: jax.Array, B: jax.Array,
 
 
 def spd_inv_gj(A: jax.Array, unroll_max: int = 48) -> jax.Array:
-    """Explicit batched SPD inverse by Gauss-Jordan elimination — the
-    TPU replacement for ``vmap(cholesky)+cho_solve`` on many small
-    blocks (VERDICT r4 #1).
+    """Explicit batched SPD inverse by Gauss-Jordan elimination — an
+    alternative to ``vmap(cholesky)+cho_solve`` on many small blocks.
 
-    XLA's batched small Cholesky + triangular solves run at ~1% of peak
-    and pay per-level kernel overhead (the measured ~3 ms/level floor of
-    the banded CR); an UNROLLED Gauss-Jordan on the augmented system
-    ``(A | I)`` is d steps of pure elementwise broadcast arithmetic over
-    the (batch, d, 2d) slab — XLA fuses the chain, and the inverses then
-    ride ordinary MXU einsums.  Pivoting-free GJ is backward-stable on
+    XLA's batched small Cholesky + triangular solves are sequential
+    per-element kernels with per-level launch overhead; an UNROLLED
+    Gauss-Jordan on the augmented system ``(A | I)`` is d steps of pure
+    elementwise broadcast arithmetic over the (batch, d, 2d) slab — XLA
+    fuses the chain, and the inverses then ride ordinary einsums.  Pivoting-free GJ is backward-stable on
     SPD inputs (same leading-minor pivots as Cholesky), and a block is
     declared non-PD exactly when Cholesky would fail: some pivot ≤ 0 —
     those blocks are NaN-poisoned to keep the λ-escalation contract
@@ -291,18 +289,17 @@ def block_tridiag_cr_solve(D: jax.Array, B: jax.Array, b: jax.Array
     Each level eliminates all ODD blocks at once (one batched (d×d)
     Cholesky + a handful of batched matmuls over N/2 blocks) and
     recurses on the even half: ⌈log₂N⌉ sequential stages instead of N
-    scan steps.  On TPU the scan is LATENCY-bound (~N × tiny-op chain —
-    measured 3.9 s/solve-chain at N=5000 on v5e); CR does ~2× the
-    flops but in ~13 batched stages (~ms).  For SPD systems CR is the
+    scan steps.  On an accelerator the scan is LATENCY-bound (~N ×
+    tiny-op chain); CR does ~2× the flops but in ~13 batched stages at
+    N = 5000 (chain.default_chain_method records the GPU timing).  For SPD systems CR is the
     Cholesky of a nested-dissection reordering — numerically stable.
     ``b`` is (N, d) or (N, d, k).  Non-PD pivots surface as NaNs in the
     result (check finiteness for the λ-escalation contract).
 
-    The whole reduction runs at HIGHEST matmul precision: TPU DEFAULT
-    bf16-truncates dot_general operands, and a chain's conditioning
-    (O(N²)) amplifies the truncation into outright divergence (the same
-    failure mode as CLAUDE.md's Schur-BA precision discipline; measured
-    on the 5000-pose graph: DEFAULT f32 diverges, exact f32 converges).
+    The whole reduction runs at HIGHEST matmul precision: at DEFAULT a
+    GPU may round dot_general operands to TF32, and a chain's
+    conditioning (O(N²)) amplifies the rounding into outright divergence
+    (the same failure mode as the Schur-BA assembly, ops/schur_obs._esum).
     """
     squeeze = b.ndim == 2
     if squeeze:
@@ -315,16 +312,13 @@ def block_tridiag_cr_solve(D: jax.Array, B: jax.Array, b: jax.Array
 def _cr_use_cholesky() -> bool:
     """CR level math selector (trace-time).  DEFAULT: backward-stable
     vmap(cholesky)+cho_solve.  TINYOPT_CR_SWEEP_INV=1 opts into the
-    explicit spd_inv_gj sweep inverse instead — measured on the
-    1000-cam flagship (2026-08-21, benchmarks/repro_flagship_conv.py):
-    the explicit inverse loses ~half a digit per solve on the
-    ill-conditioned reduced camera system and the LM trajectory stalls
-    at rmse 1.21e-3 where cho_solve reaches 9.03e-4 (criterion 1.2e-3)
-    at the same 12-iteration budget, with NO assemble-time win (25.9 vs
-    22.7 ms banded assemble+refine2) — per-level kernel-launch
-    overhead, not the factorization, is the CR floor, so the sweep
-    inverse buys nothing on the critical path.  (TINYOPT_CR_CHOLESKY=1
-    is accepted as a no-op for compatibility with the A/B harness.)"""
+    explicit spd_inv_gj sweep inverse instead (benchmarks/
+    repro_flagship_conv.py): the explicit inverse loses ~half a digit
+    per solve on the ill-conditioned reduced camera system, and on the
+    1000-camera corridor the LM trajectory missed the rmse criterion
+    within the 12-iteration budget where cho_solve met it.
+    (TINYOPT_CR_CHOLESKY=1 is accepted as a no-op for compatibility
+    with the A/B harness.)"""
     import os
     return not os.environ.get("TINYOPT_CR_SWEEP_INV")
 
@@ -377,7 +371,7 @@ def _cr_solve(D, B, b):
     else:
         # Explicit sweep inverses (spd_inv_gj) instead of batched
         # Cholesky+cho_solve: the level's whole elimination becomes
-        # fused elementwise chains + three MXU einsums (VERDICT r4 #1).
+        # fused elementwise chains + three einsums.
         Dinv = spd_inv_gj(Do)
         Yl = jnp.einsum("kab,kbc->kac", Dinv, Bl)        # D⁻¹ Bl
         Zr = jnp.einsum("kab,kcb->kac", Dinv, Br)        # D⁻¹ Brᵀ
@@ -407,11 +401,11 @@ def tridiag_woodbury_solve(D: jax.Array, B: jax.Array, U: jax.Array,
     right-hand sides, then an (m, m) dense Cholesky.  Returns
     ``(x (N, d), ok)``; requires m ≪ N·d to beat a general solver.
     ``method``: "scan" (sequential factor+solve — lowest flops, right
-    for CPU) or "cr" (log-depth cyclic reduction — right for TPU, where
-    the scan is latency-bound).  The small capacitance solve runs at
-    HIGHEST precision — it is the only place the N-long chains of the
-    two sweeps get mixed, and TPU DEFAULT would bf16-truncate its
-    dot_generals (see CLAUDE.md's f32 precision discipline).
+    for CPU) or "cr" (log-depth cyclic reduction — right for a GPU,
+    where the scan is latency-bound).  The small capacitance solve runs
+    at HIGHEST precision — it is the only place the N-long chains of the
+    two sweeps get mixed, and at DEFAULT a GPU may round its
+    dot_generals to TF32.
     """
     N, d, m = U.shape
     rhs = jnp.concatenate([b[..., None], U], axis=-1)     # (N, d, 1+m)

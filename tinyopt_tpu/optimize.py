@@ -192,8 +192,7 @@ def covariance_at(fn: Callable, x, options: Options | None = None, *,
                   mode: str = "auto", rescaled: bool = False):
     """Posterior covariance H(x)⁻¹ computed post-hoc at ``x``.
 
-    Solve paths that never materialize H — the fused whole-solve kernel
-    (``hessian.solver="fused"``, which requires ``save_last=False``) and
+    Solve paths that never materialize H — ``save_last=False`` and
     ``matfree_optimize`` — cannot fill ``Output.final_hessian``; this
     builds the un-damped normal equations at the returned ``x`` with one
     accumulate and inverts, using the same rescale formula as
@@ -401,7 +400,7 @@ def multi_start_optimize(x0_batch, fn: Callable,
                          mode: str = "auto"):
     """Solve from many start points at once and return the best.
 
-    The TPU answer to multi-modal problems (e.g. Himmelblau's four
+    The batched answer to multi-modal problems (e.g. Himmelblau's four
     minima): all starts run concurrently under ``vmap`` in one compiled
     program, then the lowest-cost successful solve wins.  Returns
     ``(x_best, out_best, outs_all)``.

@@ -1,15 +1,14 @@
 """Batched instances: vmap over problems, sharded over a mesh axis.
 
-This is the headline TPU capability the reference lacks (BASELINE.md): the
-whole accept/reject LM loop is vmapped — every instance carries its own λ
-schedule, stop reason and history — and the instance axis is laid out over
-the mesh so XLA runs thousands of independent solves per chip with zero
-cross-instance communication.
+The whole accept/reject LM loop is vmapped — every instance carries its
+own λ schedule, stop reason and history — and the instance axis is laid
+out over the mesh, so each device runs its share of thousands of
+independent solves with no cross-instance communication.  No reference
+counterpart (the reference solves one instance at a time).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable
 
 import jax
@@ -28,38 +27,6 @@ def batched_solver(fn: Callable, options: Options, mode: str, x_example,
     ``data_example`` is given, ``fn(x, data)`` receives per-instance data
     (e.g. observations) and both arguments are vmapped.
     """
-    # "fused" solver: dispatch the whole batched solve to the Pallas
-    # whole-solve kernel (ops/pallas_solver.py) on TPU backends.  Any
-    # configuration outside the kernel's envelope — or a non-TPU backend —
-    # transparently uses the vmapped XLA path below, whose trajectories
-    # are identical (the kernel implements the same carry_system=False +
-    # CG semantics).
-    if options.hessian.solver == "fused":
-        from ..ops.pallas_solver import fused_batched_solver, fused_supported
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:  # pragma: no cover - backend probing never fatal
-            on_tpu = False
-        # Resolve mode="auto" before the kernel-envelope check — the fused
-        # kernel covers residual functions, and the default batched_optimize
-        # call path passes "auto".
-        fmode = mode
-        if on_tpu and fmode == "auto":
-            from .. import manifold as mf
-            from ..optimize import _detect_mode
-            f1 = fn if data_example is None \
-                else (lambda x: fn(x, data_example))
-            x_ex = mf.as_pytree(x_example)
-            try:
-                fmode = _detect_mode(f1, x_ex, options,
-                                     mf.tangent_spec(x_ex).dims)
-            except Exception:  # noqa: BLE001 - undetectable: let vmap decide
-                fmode = mode
-        if on_tpu and fused_supported(options, fmode, x_example):
-            fused = fused_batched_solver(fn, options, x_example, data_example)
-            return _with_vmap_fallback(fused, fn, options, mode, x_example,
-                                       data_example)
-
     if data_example is None:
         solve1 = build_solver(fn, options, mode, x_example)
         return jax.vmap(solve1)
@@ -77,11 +44,10 @@ def batched_optimize(x0_batch, fn: Callable, options: Options | None = None,
 
     ``x0_batch`` (and each leaf of ``data_batch``) has a leading instance
     axis.  With ``mesh``, inputs are placed with ``NamedSharding(mesh,
-    P(axis))`` so the batch splits across devices; XLA compiles one SPMD
-    program (no per-device dispatch loop).  With
-    ``options.hessian.solver="fused"`` on TPU the per-device shard runs
-    the whole-solve Pallas kernel under ``shard_map`` (a Pallas call
-    cannot be auto-partitioned by GSPMD).
+    P(axis))`` and the solve runs under ``shard_map``: each device solves
+    its own slice of the batch, so kernels inside the solve (the batched
+    CG, ops/pallas_cg.py) see the local batch and need no partitioning
+    rule.
     """
     options = options or Options()
     x_example = jax.tree_util.tree_map(lambda a: jnp.asarray(a)[0], x0_batch)
@@ -92,12 +58,11 @@ def batched_optimize(x0_batch, fn: Callable, options: Options | None = None,
     solve = batched_solver(fn, options, mode, x_example, data_example)
 
     if mesh is not None:
-        if _is_fused_solver(solve):
-            from .sharded import _shard_map
-            spec = P(axis)
-            in_specs = (spec,) if data_batch is None else (spec, spec)
-            solve = _shard_map(solve, mesh=mesh, in_specs=in_specs,
-                               out_specs=spec)
+        from .sharded import _shard_map
+        spec = P(axis)
+        in_specs = (spec,) if data_batch is None else (spec, spec)
+        solve = _shard_map(solve, mesh=mesh, in_specs=in_specs,
+                           out_specs=spec)
         sharding = NamedSharding(mesh, P(axis))
         x0_batch = jax.tree_util.tree_map(
             lambda a: jax.device_put(jnp.asarray(a), sharding), x0_batch)
@@ -106,85 +71,7 @@ def batched_optimize(x0_batch, fn: Callable, options: Options | None = None,
                 lambda a: jax.device_put(jnp.asarray(a), sharding),
                 data_batch)
 
-    used_fused = _is_fused_solver(solve)
     solve = jax.jit(solve)
-    try:
-        if data_batch is None:
-            return solve(x0_batch)
-        return solve(x0_batch, data_batch)
-    except Exception as e:  # noqa: BLE001 - Mosaic lowering/compile failure
-        if not used_fused:
-            raise
-        import warnings
-        warnings.warn(
-            "tinyopt_tpu: fused whole-solve kernel failed to compile for "
-            f"this residual ({type(e).__name__}); retrying with the "
-            "identical-semantics \"cg\" path. "
-            f"Original error: {str(e)[:200]}", RuntimeWarning)
-        options_cg = options.replace(
-            hessian=dataclasses.replace(options.hessian, solver="cg"))
-        return batched_optimize(x0_batch, fn, options_cg,
-                                data_batch=data_batch, mode=mode,
-                                mesh=mesh, axis=axis)
-
-
-def _is_fused_solver(solve) -> bool:
-    """Whether ``batched_solver`` returned the fused whole-solve path."""
-    return getattr(solve, "_tinyopt_fused", False)
-
-
-def _with_vmap_fallback(fused, fn, options, mode, x_example, data_example):
-    """Degrade to the vmapped XLA path if the fused kernel fails to lower.
-
-    Mosaic supports most — not all — residual programs (e.g. there is no
-    floating-point iota); a kernel that fails to compile at first call
-    falls back to the identical-semantics vmap path with a warning, so
-    ``solver="fused"`` is always safe to request.
-    """
-    state = {"solve": fused, "verified": False}
-
-    def _fallback(e):
-        import warnings
-        warnings.warn(
-            "tinyopt_tpu: fused whole-solve kernel failed to compile "
-            f"for this residual ({type(e).__name__}); falling back to "
-            "the vmapped XLA path (identical semantics). "
-            f"Original error: {str(e)[:200]}", RuntimeWarning)
-        if data_example is None:
-            state["solve"] = jax.jit(jax.vmap(
-                build_solver(fn, options, mode, x_example)))
-        else:
-            def solve1(x, data):
-                return build_solver(lambda x_: fn(x_, data), options,
-                                    mode, x)(x)
-            state["solve"] = jax.jit(jax.vmap(solve1))
-
-    def call(*args):
-        # Under an OUTER jit trace, the Mosaic compile of the fused
-        # pallas_call happens when the outer program compiles — after
-        # this frame returned, where the except below can't catch it.
-        # Force the verdict now by compiling the fused executable once
-        # with the (abstract) call shapes; the result is cached by jax's
-        # jit, so the happy path pays one extra inner compile total.
-        leaves = jax.tree_util.tree_leaves(args)
-        tracing = any(isinstance(l, jax.core.Tracer) for l in leaves)
-        if tracing and not state["verified"] and state["solve"] is fused:
-            try:
-                shapes = jax.tree_util.tree_map(
-                    lambda a: jax.ShapeDtypeStruct(jnp.shape(a),
-                                                   jnp.result_type(a)),
-                    args)
-                jax.jit(fused).lower(*shapes).compile()
-                state["verified"] = True
-            except Exception as e:  # noqa: BLE001 - lowering/compile
-                _fallback(e)
-        try:
-            return state["solve"](*args)
-        except Exception as e:  # noqa: BLE001 - any lowering/compile failure
-            if state["solve"] is not fused:
-                raise
-            _fallback(e)
-            return state["solve"](*args)
-
-    call._tinyopt_fused = True
-    return call
+    if data_batch is None:
+        return solve(x0_batch)
+    return solve(x0_batch, data_batch)

@@ -44,7 +44,7 @@ def init_distributed(**kwargs) -> None:
     after this, ``jax.devices()`` spans all hosts, ``make_mesh`` lays the
     batch axis across hosts (DCN) and the block axis within hosts (ICI).
     Args are forwarded to ``jax.distributed.initialize`` (coordinator
-    address, num_processes, process_id — auto-detected on TPU pods).
+    address, num_processes, process_id; a GPU host needs all three).
     """
     import jax
 

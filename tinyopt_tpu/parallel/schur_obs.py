@@ -117,8 +117,8 @@ def make_sharded_schur_obs_system(pair_fn: Callable, a0, b0, obs,
     acc_slab, eval_slab, reduce_pass, backsub_pass = make_obs_kernels(
         pair_fn, a0, spec_a, spec_b, dtype, n_a, K, CH)
 
-    # (r5 note: the single-device entry additionally has the windowed
-    # MXU reduce, band STORAGE and the camera-locality sort — see
+    # (the single-device entry additionally has the windowed
+    # matmul reduce, band STORAGE and the camera-locality sort — see
     # ops/schur_obs.py.  The sharded path keeps the planned gathers +
     # one psum: per-device window tables are a straightforward
     # extension via make_planned_segment_reduce_multi but are not
@@ -172,7 +172,7 @@ def make_sharded_schur_obs_system(pair_fn: Callable, a0, b0, obs,
     # common shapes — the per-chunk onehot matmuls of the single-device
     # path, completed by per-device multi-plan final reduces and the
     # same ONE psum.  Preferred over the planned gathers when it plans
-    # (TPU-gated inside plan_window_reduce_multi).
+    # (gated by schur_obs.window_default inside plan_window_reduce_multi).
     win_loop = None
     fin_tri_apply = fin_slot_apply = None
     if cam_d_list is not None:

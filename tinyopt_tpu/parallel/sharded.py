@@ -30,8 +30,8 @@ from ..options import Options
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    # check_vma/check_rep off: the fused Pallas solver's out_shape carries
-    # no varying-mesh-axes annotation, and per-shard independence is by
+    # check_vma/check_rep off: a Pallas call's out_shape carries no
+    # varying-mesh-axes annotation, and per-shard independence is by
     # construction here (pure data parallelism over instances).
     try:
         return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,

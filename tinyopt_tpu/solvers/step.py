@@ -172,9 +172,7 @@ def _dogleg_step(H, g, lam, opts):
         return dogleg_core(
             g, lam, dx_gn, ok_gn, jnp.vdot(g, H.matvec(g)),
             lambda le: H.damp(le).solve(-g, cg_iters=iters))
-    if opts.hessian.solver in ("cg", "fused"):
-        # CG dense path (same preconditioned iterates as the fused
-        # whole-solve kernel's in-kernel dogleg — parity-tested there).
+    if opts.hessian.solver == "cg":
         iters = opts.hessian.cg_iters or g.shape[-1]
         cg = _cg_solver(iters)
 
@@ -216,13 +214,12 @@ def propose_step(H, g, lam, opts):
         return Hd.solve(-g, use_cholesky=opts.hessian.use_ldlt)
     if isinstance(H, SparseSym):
         # General sparse normal equations (the reference's SimplicialLDLT
-        # path, gn.h:154-156) -> Jacobi-preconditioned CG on TPU.
+        # path, gn.h:154-156) -> Jacobi-preconditioned CG.
         Hd = H.damp(lam) if is_lm else H
         return Hd.solve(-g, cg_iters=opts.hessian.cg_iters)
     Hd = damp_diagonal(H, lam) if is_lm else H
-    # "fused" = whole-solve Pallas kernel when batched (ops/pallas_solver);
-    # outside that path it degrades to the identical-iterates CG solve.
-    if opts.hessian.solver in ("cg", "fused"):
+    # "cg": one batched call under vmap (ops/pallas_cg.make_cg_solver).
+    if opts.hessian.solver == "cg":
         iters = opts.hessian.cg_iters or g.shape[-1]
         dx = _cg_solver(iters)(Hd, -g)
         return dx, jnp.all(jnp.isfinite(dx))
